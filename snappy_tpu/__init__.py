@@ -1,8 +1,8 @@
-"""snappy_tpu — a TPU-native Snappy codec framework.
+"""snappy_tpu — a Snappy codec framework for accelerators, in JAX.
 
 Layers (SURVEY.md §7.1):
   spec/     L0 pure-Python oracle codec + format constants
-  kernels/  L1 jnp + Pallas device kernels (parallel decode/encode, CRC)
+  kernels/  L1 jnp device kernels (parallel decode/encode, CRC)
   runtime/  L2 block planner, padded buffers, framed-format production path
   dist/     L3 device-mesh sharding (DP over independent 64 KiB blocks)
   native/   L7 C++ host codec + hardware CRC-32C (ctypes bindings)
@@ -13,7 +13,7 @@ compress_framed / decompress_framed (.sz framed format), and the
 device-resident matrix decompress_to_device /
 decompress_framed_to_device (decode-to-HBM data loading) and
 compress_from_device / compress_framed_from_device (HBM array ->
-stream; the framed form computes per-chunk CRC-32C on the MXU).
+stream; the framed form computes per-chunk CRC-32C on the device).
 """
 
 from snappy_tpu.errors import (

@@ -2,8 +2,8 @@
 
 Backend dispatch follows the reference's swappable-command-var test seam
 (SURVEY.md §4.1): every entry point routes through a registry of
-interchangeable backends ("oracle" pure-Python, "native" C++, "jnp"
-XLA, "pallas" TPU kernels), selectable per call or via
+interchangeable backends ("oracle" pure-Python, "np" numpy, "native"
+C++, "jnp" the device codec), selectable per call or via
 SNAPPY_TPU_BACKEND.  All backends are bit-compatible on decode and
 validated against the oracle.
 """
@@ -62,18 +62,17 @@ def _ensure_default_backends() -> None:
         except Exception:  # pragma: no cover - native build is optional
             pass
     if "jnp" not in _BACKENDS:
-        try:
-            from snappy_tpu.runtime import device_codec
+        # no guard: a broken device codec must fail loudly, not leave
+        # "auto" and explicit backend="jnp" callers on another path
+        from snappy_tpu.runtime import device_codec
 
-            register_backend(
-                "jnp",
-                compress=device_codec.compress,
-                decompress=device_codec.decompress,
-                compress_framed=device_codec.compress_framed,
-                decompress_framed=device_codec.decompress_framed,
-            )
-        except Exception:  # pragma: no cover - jax is optional at import
-            pass
+        register_backend(
+            "jnp",
+            compress=device_codec.compress,
+            decompress=device_codec.decompress,
+            compress_framed=device_codec.compress_framed,
+            decompress_framed=device_codec.decompress_framed,
+        )
 
 
 _PREFERENCE = ("native", "oracle")
@@ -171,7 +170,7 @@ def decompress_to_device(data: bytes):
 
 def decompress_framed_to_device(data: bytes, verify_checksums: bool = True):
     """Decompress a framed (.sz) stream to a DEVICE-RESIDENT uint8
-    jax.Array, per-chunk CRC-32C verified on the MXU where the bytes
+    jax.Array, per-chunk CRC-32C verified on the device where the bytes
     land; only the tiny err vector returns to the host."""
     from snappy_tpu.runtime import device_codec
 
@@ -181,7 +180,7 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True):
 def compress_framed_from_device(arr) -> bytes:
     """Compress a DEVICE-RESIDENT uint8 jax.Array into a framed (.sz)
     stream (the encode half of the data-loader path: per-chunk
-    CRC-32C computed on the MXU before any byte leaves HBM; the D2H
+    CRC-32C computed on the device before any byte leaves HBM; the D2H
     row fetch overlaps the threaded host matcher).  Byte-identical to
     compress_framed(bytes(arr))."""
     from snappy_tpu.runtime import device_codec
@@ -192,7 +191,7 @@ def compress_framed_from_device(arr) -> bytes:
 def compress_from_device(arr) -> bytes:
     """Compress a DEVICE-RESIDENT uint8 jax.Array into a RAW Snappy
     stream.  The raw block format carries no checksums, so unlike the
-    framed direction there is no MXU CRC to fuse — this is a D2H
+    framed direction there is no device CRC to fuse — this is a D2H
     fetch feeding the threaded host encoder, provided so the
     to/from-device API matrix is complete in both formats (the framed
     form is the production from-device path).  Byte-identical to

@@ -1,17 +1,18 @@
-"""Config-4 long-stream measurement subprocess (VERDICT r4 #7): ONE
+"""Config-4 long-stream measurement subprocess: ONE
 >= 1 GB single framed stream and one >= 1 GB raw stream through the
 production host paths, GB/s + peak RSS, printed as one
 `LONGSTREAM_JSON {...}` line.
 
 Runs pinned to the CPU platform in its own process so ru_maxrss is the
 phase's own footprint (the main bench process has already touched
-hundreds of MB of staging).  What is measured and why:
+hundreds of MB of staging) and so it never opens the accelerator the
+parent holds (one process per card).  What is measured and why:
 
 - stream_decompress_gbs: the production framed decode to a host
   destination — per docs/architecture.md the id architecture's host
   walk IS the decode for host destinations, so this is the threaded
-  native framed codec (the same engine `decompress_framed` rides; the
-  device adds the CRC check, measured separately in the system phase).
+  native framed codec (the host walk the id path rides; the device
+  adds the CRC check, measured separately in the system phase).
 - stream_raw_decompress_gbs: a single >= 1 GB RAW snappy stream
   through the public decompress() production route (the id walk; raw
   LZ history makes this inherently single-core).
@@ -39,7 +40,7 @@ def _rss_mb() -> float:
 def main() -> int:
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_platforms", "cpu")  # stay off the card
     import numpy as np
 
     from snappy_tpu import native

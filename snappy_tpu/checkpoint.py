@@ -3,7 +3,7 @@
 The production use case the from/to-device APIs exist for
 (docs/architecture.md: "the destination is the chip"): save a jax
 array that lives in HBM as a compressed framed stream whose per-chunk
-CRC-32C is computed on the MXU before any byte leaves the chip, and
+CRC-32C is computed on the device before any byte leaves it, and
 load it back with the bytes landing device-resident and CRC-verified
 where they land.
 
@@ -65,7 +65,7 @@ def _split_meta(data: bytes):
 
 def save_array(arr) -> bytes:
     """Serialize a device-resident jax array: bitcast to uint8 ON
-    DEVICE, compress through compress_framed_from_device (MXU CRC
+    DEVICE, compress through compress_framed_from_device (device CRC
     before the bytes leave HBM), manifest in a skippable chunk."""
     import jax
     import jax.numpy as jnp
@@ -90,7 +90,7 @@ def save_array(arr) -> bytes:
 def load_array(data: bytes, to_device: bool = True):
     """Load an array saved by save_array.  to_device=True (default)
     lands the bytes device-resident via decompress_framed_to_device
-    (CRC verified on the MXU) and bitcasts back on device; False
+    (CRC verified on the device) and bitcasts back on device; False
     decodes to host and returns a numpy array."""
     import jax
     import jax.numpy as jnp

@@ -442,7 +442,7 @@ def main(argv=None) -> int:
 
     tune_allocator()
     p = argparse.ArgumentParser(
-        prog="tpusnappy", description="TPU-native Snappy codec"
+        prog="tpusnappy", description="Snappy codec (raw + framed formats)"
     )
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument(

@@ -32,8 +32,6 @@ __all__ = [
     "init_distributed",
     "sharded_encode",
     "sharded_decode",
-    "sharded_decode_flat",
-    "sharded_encode_flat",
     "sharded_decode_id",
     "sharded_decompress_framed_to_device",
     "sharded_compress_framed_from_device",
@@ -116,171 +114,11 @@ def sharded_decode(
     return np.asarray(out)[:b], np.asarray(err)[:b]
 
 
-def stage_flat_dec_batch(elems: list[bytes], cmax: int | None = None):
-    """Host half of the flat decode engine for a block batch: fused
-    native stage per element (plan + B-row assembly).  Returns
-    (b_u8, meta, fstarts, ntrips, dst_lens, want_crc) ready for
-    sharded_decode_flat.  Raises if any element overflows the flat
-    caps (callers of the production runtime fall back per chunk; the
-    dist entry points are exercised with in-envelope shapes)."""
-    from snappy_tpu import native
-    from snappy_tpu.kernels.decode_flat import TRIP_CAP, rows_b_for
-    from snappy_tpu.spec.format import read_uvarint
-
-    B = len(elems)
-    cmax = cmax or max((len(e) for e in elems), default=1)
-    rb = rows_b_for(cmax)
-    b_u8 = np.zeros((B, rb * 128), np.uint8)
-    meta = np.zeros((B, 8 * TRIP_CAP, 128), np.int32)
-    fstarts = np.zeros((B, 8, 128), np.int32)
-    ntrips = np.zeros(B, np.int32)
-    dst_lens = np.zeros(B, np.int32)
-    want = np.zeros(B, np.uint32)
-    from snappy_tpu.kernels.decode_flat import mirror_base_for
-
-    for i, e in enumerate(elems):
-        dlen, hdr = read_uvarint(e, 0)
-        g = native.stage_flat_dec(
-            np.frombuffer(e, np.uint8), hdr, dlen, rb,
-            meta[i], fstarts[i], b_u8[i])
-        if g is None:
-            raise ValueError(f"element {i} overflows the flat plan caps")
-        ntrips[i] = g
-        dst_lens[i] = dlen
-        # the staged mirror IS the output image — the expected CRC
-        # comes for free (in production it rides the chunk header)
-        mb = mirror_base_for(len(e))
-        want[i] = native.crc32c_arr(b_u8[i, mb : mb + dlen])
-    return b_u8, meta, fstarts, ntrips, dst_lens, want
-
-
-def stage_flat_enc_batch(blocks: list[bytes]):
-    """Host half of the flat encode engine for a block batch (the
-    matcher IS the planning pass).  Returns (b_u8, meta, fstarts,
-    ntrips, clens, hdrs, elems) where elems are the host emissions the
-    device replay must equal byte-for-byte."""
-    from snappy_tpu import native
-    from snappy_tpu.kernels.encode_flat import (
-        ENC_TRIP_CAP,
-        RB_ENC,
-        TAG_ROWS,
-    )
-
-    B = len(blocks)
-    b_u8 = np.zeros((B, RB_ENC * 128), np.uint8)
-    meta = np.zeros((B, 8 * ENC_TRIP_CAP, 128), np.int32)
-    fstarts = np.zeros((B, 8, 128), np.int32)
-    ntrips = np.zeros(B, np.int32)
-    clens = np.zeros(B, np.int32)
-    hdrs = np.zeros(B, np.int32)
-    elems = []
-    bmax = max((len(b) for b in blocks), default=1)
-    elem = np.empty(native.max_compressed_length(bmax) + 8, np.uint8)
-    for i, blk in enumerate(blocks):
-        r, clen, hdr = native.stage_flat_enc(
-            np.frombuffer(blk, np.uint8), RB_ENC, meta[i], fstarts[i],
-            b_u8[i], TAG_ROWS * 128, elem)
-        if r is None:
-            raise ValueError(f"block {i} overflows the flat enc caps")
-        ntrips[i] = r
-        clens[i] = clen
-        hdrs[i] = hdr
-        elems.append(elem[:clen].tobytes())
-    return b_u8, meta, fstarts, ntrips, clens, hdrs, elems
-
-
-def sharded_decode_flat(
-    mesh: Mesh,
-    b_u8: np.ndarray,
-    meta: np.ndarray,
-    fstarts: np.ndarray,
-    ntrips: np.ndarray,
-    dst_lens: np.ndarray,
-    want_crc: np.ndarray,
-    out_max: int,
-    interpret: bool | None = None,
-):
-    """PRODUCTION flat decode engine data-parallel over the mesh
-    (VERDICT r2 #5): host-staged plans shard on the block axis via
-    shard_map — each device runs the pallas gather/compose kernel +
-    fused device CRC on its local shard, with ZERO collectives (chunk
-    independence, SURVEY.md §7.4).  b_u8: uint8[B, rb*128] staged rows
-    (native.stage_flat_dec); padding rows (batch not a mesh multiple)
-    carry empty plans + dst_len 0.  Returns host (out[B, out_max],
-    err[B]) where err 100 = device CRC mismatch."""
-    from snappy_tpu.kernels.crc32c_jnp import crc32c_chunks
-    from snappy_tpu.kernels.decode_flat import decode_blocks_flat
-
-    (b_u8, meta, fstarts, ntrips, dst_lens, want_crc), b = _pad_to_mesh(
-        mesh, b_u8, meta, fstarts, ntrips, dst_lens, want_crc
-    )
-    arrs = _shard_batch(mesh, b_u8, meta, fstarts, ntrips, dst_lens, want_crc)
-
-    from snappy_tpu.kernels.crc32c_jnp import CHUNK as _CRC_CHUNK
-
-    use_crc = out_max == _CRC_CHUNK  # the CRC kernel is chunk-width-bound
-
-    def _local(b_u8, meta, fstarts, ntrips, dlens, want):
-        out = decode_blocks_flat(b_u8, meta, fstarts, ntrips,
-                                 dst_max=out_max, interpret=interpret)
-        if use_crc:
-            crc = crc32c_chunks(out, dlens)
-            err = jnp.where((crc != want) & (dlens > 0), jnp.int32(100),
-                            jnp.int32(0))
-        else:
-            err = jnp.zeros(dlens.shape, jnp.int32)
-        return out, err
-
-    with mesh:
-        out, err = jax.jit(jax.shard_map(
-            _local, mesh=mesh,
-            in_specs=(P("d"), P("d"), P("d"), P("d"), P("d"), P("d")),
-            out_specs=(P("d"), P("d")),
-            # pallas_call out_shapes carry no vma annotation
-            check_vma=False,
-        ))(*arrs)
-    return np.asarray(out)[:b], np.asarray(err)[:b]
-
-
-def sharded_encode_flat(
-    mesh: Mesh,
-    b_u8: np.ndarray,
-    meta: np.ndarray,
-    fstarts: np.ndarray,
-    ntrips: np.ndarray,
-    interpret: bool | None = None,
-):
-    """PRODUCTION flat encode engine data-parallel over the mesh: the
-    device emits each block's compressed element (host-staged plans,
-    native.stage_flat_enc) on its own shard, zero collectives.
-    Returns host uint8[B, OUT_ROWS_ENC*128] emissions (callers slice
-    with the planner's clen/hdr)."""
-    from snappy_tpu.kernels.encode_flat import encode_blocks_flat
-
-    (b_u8, meta, fstarts, ntrips), b = _pad_to_mesh(
-        mesh, b_u8, meta, fstarts, ntrips
-    )
-    arrs = _shard_batch(mesh, b_u8, meta, fstarts, ntrips)
-
-    def _local(b_u8, meta, fstarts, ntrips):
-        return encode_blocks_flat(b_u8, meta, fstarts, ntrips,
-                                  interpret=interpret)
-
-    with mesh:
-        out = jax.jit(jax.shard_map(
-            _local, mesh=mesh,
-            in_specs=(P("d"), P("d"), P("d"), P("d")),
-            out_specs=P("d"),
-            check_vma=False,
-        ))(*arrs)
-    return np.asarray(out)[:b]
-
-
-_ID_ROWS = 520  # flat v3 staging panel (512 image rows + slop guard)
+_ID_ROWS = 520  # id staging panel (512 image rows + slop guard)
 
 
 def stage_dec_id_batch(elems: list[bytes]):
-    """Host half of flat v3 ("id") for a block batch: each element is
+    """Host half of the id path for a block batch: each element is
     validated + decoded straight into its staging row
     (native.stage_flat_dec_id).  Returns (b_u8, dst_lens, want_crc);
     in production the expected CRC rides the chunk header — here it is
@@ -307,9 +145,9 @@ def sharded_decode_id(
     dst_lens: np.ndarray,
     want_crc: np.ndarray,
 ):
-    """PRODUCTION flat v3 decode data-parallel over the mesh: each
-    device slices its staged rows' 512-row output image and verifies
-    per-chunk CRC-32C on the MXU — zero collectives (chunk
+    """PRODUCTION id decode data-parallel over the mesh: each device
+    slices its staged rows' 512-row output image and verifies
+    per-chunk CRC-32C — zero collectives (chunk
     independence, SURVEY.md §7.4).  Padding rows carry dst_len 0 and
     are CRC-exempt.  Returns host (out[B, 65536], err[B]) where err
     100 = device CRC mismatch."""
@@ -342,11 +180,11 @@ def sharded_decompress_framed_to_device(
     mesh: Mesh, data: bytes, verify_checksums: bool = True,
     chunk_range: tuple[int, int] | None = None,
 ):
-    """Stream-level DATA-LOADER entry (flat v3 over the mesh): scan a
+    """Stream-level DATA-LOADER entry (id path over the mesh): scan a
     framed stream, id-stage every chunk on host (threaded C++ walk),
     and land the decompressed bytes SHARDED over the mesh — one 64 KiB
     image row per chunk, batch axis partitioned over 'd', per-chunk
-    CRC-32C verified on each device's MXU with ZERO collectives (chunk
+    CRC-32C verified on each device with ZERO collectives (chunk
     independence, SURVEY.md §7.4).  Only the tiny err vector is
     fetched; the rows stay device-resident.
 
@@ -404,7 +242,7 @@ def sharded_compress_framed_from_device(
     sharded_decompress_framed_to_device, whose (rows, dst_lens, b)
     output this accepts directly): chunk rows living sharded in HBM
     become one framed .sz stream.  Per-chunk CRC-32C runs on each
-    device's MXU shard with ZERO collectives (chunk independence);
+    device's shard with ZERO collectives (chunk independence);
     the D2H row fetch feeds the threaded C++ matcher; assembly is
     chunk-ordered on host, so no cross-host length gather is needed
     beyond what dist.multihost already does for host-split streams.
@@ -414,15 +252,7 @@ def sharded_compress_framed_from_device(
     lens: int[b] valid byte count per row, b <= B; rows past b are
     padding and emit nothing.  Byte-identical to
     compress_framed(concat of the row bytes)."""
-    from snappy_tpu import native
-    from snappy_tpu.kernels.crc32c_jnp import CHUNK as _CRC_CHUNK, crc32c_chunks
-    from snappy_tpu.spec.format import (
-        CHUNK_UNCOMPRESSED,
-        STREAM_ID_CHUNK,
-        framed_chunk_type,
-        mask_crc,
-        put_uvarint,
-    )
+    from snappy_tpu.spec.format import STREAM_ID_CHUNK
 
     return bytes(STREAM_ID_CHUNK) + b"".join(
         sharded_encode_rows_to_chunks(mesh, rows, lens))
@@ -470,7 +300,7 @@ def sharded_encode_rows_to_chunks(
     if native.available() and bool(np.all(lens_p[:b - 1] == _CRC_CHUNK)):
         # Full middle rows (the loader contract): the fetched row
         # matrix is the contiguous chunk byte stream, so matching +
-        # framing + assembly is ONE threaded C++ call with the MXU
+        # framing + assembly is ONE threaded C++ call with the device
         # CRCs passed through; rec_lens splits the buffer back into
         # the per-chunk records the multi-host assembly contract needs.
         rl = np.zeros(b, np.uint64)
@@ -520,7 +350,7 @@ def sharded_encode_rows_to_chunks(
 
 
 def sharded_crc(mesh: Mesh, blocks: np.ndarray, lens: np.ndarray):
-    """Encode-side device work of flat v3: per-chunk CRC-32C of the
+    """Encode-side device work of the id path: per-chunk CRC-32C of the
     uncompressed blocks (uint8[B, 65536]) over the mesh, zero
     collectives.  Returns host uint32[B]."""
     from snappy_tpu.kernels.crc32c_jnp import crc32c_chunks
@@ -533,39 +363,6 @@ def sharded_crc(mesh: Mesh, blocks: np.ndarray, lens: np.ndarray):
             in_specs=(P("d"), P("d")), out_specs=P("d"),
         ))(*arrs)
     return np.asarray(crc)[:b]
-
-
-def sharded_match(
-    mesh: Mesh,
-    blocks: list[bytes],
-    slots: int = 4096,
-    interpret: bool | None = None,
-) -> np.ndarray:
-    """Device match finder data-parallel over the mesh: each device
-    sorts its local blocks' (v-word, pos) panels (kernels/pallas_match)
-    and ships sorted (position, packed) pairs; the host scatters them
-    home.  Zero collectives — candidate search is per-block.  Returns
-    int32[B, slots] packed candidates (match_np contract)."""
-    from snappy_tpu.kernels import pallas_match
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    w_i32, npos = pallas_match.stage_words(blocks, slots)
-    (w_i32, npos), b = _pad_to_mesh(mesh, w_i32, npos)
-    arrs = _shard_batch(mesh, w_i32, npos)
-
-    def _local(w, np_):
-        return pallas_match._match_jit(w, np_, interpret=interpret,
-                                       group=1, home=False)
-
-    with mesh:
-        pairs = jax.jit(jax.shard_map(
-            _local, mesh=mesh,
-            in_specs=(P("d"), P("d")),
-            out_specs=P("d"),
-            check_vma=False,
-        ))(*arrs)
-    return pallas_match.scatter_home(np.asarray(pairs)[:b])
 
 
 @functools.partial(jax.jit, static_argnames=("bmax",))

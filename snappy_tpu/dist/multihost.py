@@ -145,7 +145,7 @@ def host_compress_framed_from_device(rows, lens: np.ndarray, mesh=None):
     """Encode this host's DEVICE-RESIDENT chunk rows into framed chunk
     records (the from-device multi-host encode — config 5 with the
     payload starting in HBM, e.g. straight from the loader or a model):
-    per-chunk CRC-32C runs on the local mesh's MXUs before the rows
+    per-chunk CRC-32C runs on the local mesh's devices before the rows
     leave the chips, the local matcher emits, and the caller assembles
     exactly as with host_compress_framed — allgather the lengths (the
     one DCN collective), exclusive-scan offsets, pwrite disjoint

@@ -2,7 +2,7 @@
 utilities, and the Rabin-Karp hash constants.
 
 Everything here is shape-static and jit-friendly; the same code runs on
-the CPU backend (tests) and TPU (production).
+the CPU backend (tests) and the accelerator (production).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 
 # Two independent odd multipliers for the paired u32 rolling hash.  u32
-# wraparound is native on TPU (u64 is emulated/x64-gated); the pair gives
+# wraparound needs no x64 mode (u64 is x64-gated in JAX); the pair gives
 # ~2^-64 collision odds per comparison, and every emitted copy is exactly
 # verified afterwards regardless.
 R_A = np.uint32(0x01000193)  # FNV-32 prime
@@ -76,7 +76,7 @@ def mark_orbit(nxt: jnp.ndarray, start: jnp.ndarray, rounds: int) -> jnp.ndarray
 
     nxt values must satisfy nxt[p] > p, with `size` acting as the
     absorbing out-of-range sentinel.  Gathers are the expensive
-    primitive on TPU, so the loop exits as soon as a round adds no new
+    primitive here, so the loop exits as soon as a round adds no new
     marks (typical streams converge in ~log2(#tags) ~ 12 rounds, and the
     convergence check is a cheap reduction).
     """

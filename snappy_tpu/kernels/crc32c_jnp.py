@@ -1,10 +1,10 @@
-"""CRC-32C on the MXU: checksum as GF(2) matrix multiplication.
+"""CRC-32C on the device: checksum as GF(2) matrix multiplication.
 
 CRC is linear over GF(2), so the checksum of a 64 KiB chunk factors into
 two matmuls (SURVEY.md §7.3.5):
 
   1. split the chunk into S=256 segments of L=256 bytes; unpack to bits;
-     segment CRCs = bits[S, 8L] @ B[8L, 32]  (mod 2)   -- one MXU matmul
+     segment CRCs = bits[S, 8L] @ B[8L, 32]  (mod 2)   -- one matmul
   2. combine: crc = concat(segcrcs)[S*32] @ P[S*32, 32] (mod 2) ^ const
      (P folds the per-position zero-shift matrices M_{8L(S-1-s)})
 
@@ -12,9 +12,13 @@ Chunks shorter than 64 KiB are zero-SUFFIX padded on device and the
 length adjustment crc(m) = Minv_{8k}(crc(m||0^k) ^ crc(0^k)) is applied
 with 17 tiny selective matvecs (binary decomposition of k).
 
-All matmuls run in bf16 with f32 accumulation (products are 0/1; sums
-<= 2048 are exact), so the MXU does the heavy lifting; the mod-2 is one
-elementwise AND.  Validated bit-exact against the table oracle.
+The two big matmuls take bf16 0/1 operands with f32 accumulation
+(products are 0/1; sums <= 8192 are exact in f32), so the matrix units
+do the heavy lifting; the mod-2 is one elementwise AND.  The float32
+matvecs of the length adjustment ask for Precision.HIGHEST so that no
+backend may round their operands (e.g. to TF32); with 0/1 operands and
+sums <= 32 they are exact either way.  Validated bit-exact against the
+table oracle.
 """
 
 from __future__ import annotations
@@ -145,7 +149,9 @@ def crc32c_chunks(chunks: jnp.ndarray, lengths: jnp.ndarray) -> jnp.ndarray:
         apply = ((k >> j) & 1) == 1
         cf = c.astype(jnp.float32)
         nxt = jax.lax.dot_general(
-            cf, minv[j], (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
+            cf, minv[j], (((1,), (1,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
+            preferred_element_type=jnp.float32,
         ).astype(jnp.int32) & 1
         return jnp.where(apply[:, None], nxt, c)
 

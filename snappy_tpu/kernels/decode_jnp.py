@@ -3,7 +3,7 @@
 The jnp mirror of kernels/decode_np.py (same algorithm, shape-static and
 batched): speculative per-position tag parse -> orbit marking by pointer
 doubling -> per-output-byte source pointers -> pointer-doubling copy
-resolution -> one gather.  Runs identically on CPU (tests) and TPU.
+resolution -> one gather.  Runs identically on every JAX backend.
 
 Layout: a batch of B independent blocks, each a row of a padded
 [B, CMAX] uint8 array.  Everything is vmapped over rows; XLA fuses the

@@ -10,9 +10,10 @@ the tag-orbit doubling), keeping only the per-byte copy resolution:
     records -> per-byte segment labels -> source pointers ->
     pointer-doubling -> one gather
 
-Roughly halves the device gather traffic vs decode_jnp; used by the
-runtime when the native library is present (SNAPPY_TPU_HOST_PARSE=0
-forces the pure-device path).
+Roughly halves the device gather traffic vs decode_jnp.  The runtime
+routes framed decode to the id path whenever the native library is
+present, so this kernel is no longer selected by device_codec
+(SNAPPY_TPU_HOST_PARSE=0 forced the pure-device path when it was).
 """
 
 from __future__ import annotations

@@ -136,41 +136,6 @@ def _load():
             u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
             i32p, ctypes.c_uint64,
         ]
-        lib.sn_plan_waves.restype = ctypes.c_int64
-        lib.sn_plan_waves.argtypes = [
-            i32p, ctypes.c_uint64, i32p, ctypes.c_uint64,
-        ]
-        lib.sn_set_direct_t.restype = None
-        lib.sn_set_direct_t.argtypes = [ctypes.c_int]
-        lib.sn_plan_flat_fused.restype = ctypes.c_int64
-        lib.sn_plan_flat_fused.argtypes = [
-            u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i32p, i32p, u8p,
-        ]
-        lib.sn_plan_flat.restype = ctypes.c_int64
-        lib.sn_plan_flat.argtypes = [
-            i32p, ctypes.c_uint64, u8p, ctypes.c_uint64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, i32p, i32p, u8p,
-        ]
-        lib.sn_stage_flat_dec.restype = ctypes.c_int64
-        lib.sn_stage_flat_dec.argtypes = [
-            u8p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i32p, i32p, u8p,
-        ]
-        lib.sn_stage_flat_enc.restype = ctypes.c_int64
-        lib.sn_stage_flat_enc.argtypes = [
-            u8p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, i32p, i32p, u8p, ctypes.c_uint64, u8p,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-        ]
-        lib.sn_plan_flat_enc.restype = ctypes.c_int64
-        lib.sn_plan_flat_enc.argtypes = [
-            i32p, ctypes.c_uint64, u8p, ctypes.c_uint64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, i32p, i32p, u8p,
-            ctypes.c_uint64, ctypes.POINTER(ctypes.c_int64),
-        ]
         i64p = ctypes.POINTER(ctypes.c_int64)
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.sn_enc_study.restype = ctypes.c_int64
@@ -197,28 +162,6 @@ def _load():
         lib.sn_framed_uncompressed_length.restype = ctypes.c_int64
         lib.sn_framed_uncompressed_length.argtypes = [
             u8p, ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64),
-        ]
-        lib.sn_emit_from_cands.restype = ctypes.c_int64
-        lib.sn_emit_from_cands.argtypes = [u8p, ctypes.c_uint64, i32p, u8p]
-        i64p = ctypes.POINTER(ctypes.c_int64)
-        lib.sn_stage_flat_dec_batch.restype = ctypes.c_int64
-        lib.sn_stage_flat_dec_batch.argtypes = [
-            u8p, i64p, i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, i32p, i32p, u8p, i64p,
-            ctypes.c_int64,
-        ]
-        lib.sn_stage_flat_dec_seg.restype = ctypes.c_int64
-        lib.sn_stage_flat_dec_seg.argtypes = [
-            u8p, ctypes.c_uint64, ctypes.c_uint64, i64p, u8p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, i32p, i32p, u8p,
-        ]
-        lib.sn_stage_flat_enc_batch.restype = ctypes.c_int64
-        lib.sn_stage_flat_enc_batch.argtypes = [
-            u8p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, i32p, i32p, u8p,
-            ctypes.c_uint64, u8p, ctypes.c_int64, i64p, i64p, i64p,
-            ctypes.c_int64,
         ]
         lib.sn_stage_flat_dec_id.restype = ctypes.c_int
         lib.sn_stage_flat_dec_id.argtypes = [
@@ -365,70 +308,18 @@ def _i64p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
-def _i32p(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
-
-
-def stage_flat_dec_batch(elems_buf: np.ndarray, offs: np.ndarray,
-                         lens: np.ndarray, hdrs: np.ndarray,
-                         dst_lens: np.ndarray, rb: int, meta: np.ndarray,
-                         starts: np.ndarray, b_rows: np.ndarray,
-                         rc_out: np.ndarray, n_threads: int = 4,
-                         piece_cap: int = -1) -> int:
-    """Whole-batch fused decode STAGE with C++ worker threads — one
-    ctypes call for B rows (the per-row Python pool paid ~30% GIL-held
-    marshalling and scaled negatively).  meta: int32[B, 8*trip_cap,
-    128]; rc_out: int64[B] gets the packed trip count or the row's
-    negative error (BUFFER -> per-chunk fallback, CORRUPT -> raise at
-    the caller).  Returns the number of negative rows."""
-    lib = _load()
-    B, nmr, _ = meta.shape
-    trip_cap = nmr // 8
-    for a in (offs, lens, hdrs, dst_lens, rc_out):
-        assert a.dtype == np.int64 and a.flags.c_contiguous
-    return int(lib.sn_stage_flat_dec_batch(
-        _as_u8p(elems_buf), _i64p(offs), _i64p(lens), _i64p(hdrs),
-        _i64p(dst_lens), B, rb, trip_cap, piece_cap, _i32p(meta),
-        _i32p(starts), _as_u8p(b_rows), _i64p(rc_out), n_threads))
-
-
-def stage_flat_dec_seg(element: np.ndarray, dst_total: int,
-                       state: np.ndarray, img: np.ndarray, seg_len: int,
-                       cmax: int, rb: int, meta: np.ndarray,
-                       starts: np.ndarray, b_row: np.ndarray,
-                       piece_cap: int = -1) -> int | None:
-    """Segmented RAW-stream flat STAGE (see sn_stage_flat_dec_seg):
-    plans ``seg_len`` output bytes of one raw element as a dependency-
-    free flat plan, carrying the walk state and the rolling 64 KiB
-    history in ``img`` (65536 + seg_len + 64 bytes; caller slides the
-    carry between segments).  state: int64[6] {s, d, lit_src, lit_rem,
-    copy_off, copy_rem}; initialize to [hdr, 0, 0, 0, 0, 0].  Returns
-    packed trips, None when a cap/oversized slice forces the host
-    fallback, raises on corrupt streams."""
-    lib = _load()
-    trip_cap = meta.shape[0] // 8
-    assert state.dtype == np.int64 and state.shape == (6,)
-    rc = lib.sn_stage_flat_dec_seg(
-        _as_u8p(element), element.shape[0], dst_total, _i64p(state),
-        _as_u8p(img), seg_len, cmax, rb, trip_cap, piece_cap,
-        _i32p(meta), _i32p(starts), _as_u8p(b_row))
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc)
-
-
 def stage_flat_dec_id_seg(element: np.ndarray, dst_total: int,
                           state: np.ndarray, img: np.ndarray,
                           seg_len: int, rb: int,
                           b_row: np.ndarray) -> bool:
     """Identity seg STAGE (see sn_stage_flat_dec_id_seg): the resume
     walk decodes ``seg_len`` output bytes straight into ``b_row`` (tail
-    zeroed) — no plan, the staged row IS the output segment.  Same
-    state/img carry contract as stage_flat_dec_seg.  Returns True, or
-    False when a >64 KiB copy offset forces the host fallback; raises
-    on corrupt streams."""
+    zeroed) — no plan, the staged row IS the output segment.  state:
+    int64[6] {s, d, lit_src, lit_rem, copy_off, copy_rem}, initialized
+    to [hdr, 0, 0, 0, 0, 0]; img: 65536 + seg_len + 64 bytes whose
+    first 64 KiB carry the previous segment's tail (the caller slides
+    it between segments).  Returns True, or False when a >64 KiB copy
+    offset forces the host fallback; raises on corrupt streams."""
     lib = _load()
     assert state.dtype == np.int64 and state.shape == (6,)
     rc = lib.sn_stage_flat_dec_id_seg(
@@ -441,31 +332,9 @@ def stage_flat_dec_id_seg(element: np.ndarray, dst_total: int,
     return True
 
 
-def stage_flat_enc_batch(blocks: np.ndarray, lens: np.ndarray, rb: int,
-                         meta: np.ndarray, starts: np.ndarray,
-                         b_rows: np.ndarray, tag_cap: int,
-                         elem_out: np.ndarray, clens_out: np.ndarray,
-                         hdrs_out: np.ndarray, rc_out: np.ndarray,
-                         n_threads: int = 4, piece_cap: int = -1) -> int:
-    """Whole-batch fused encode STAGE (see stage_flat_dec_batch).
-    blocks: uint8[B, block_stride]; elem_out: uint8[B, elem_cap] always
-    holds each row's full host element (the fallback emission when
-    rc_out[i] == -5).  Returns the number of negative rows."""
-    lib = _load()
-    B, nmr, _ = meta.shape
-    trip_cap = nmr // 8
-    for a in (lens, clens_out, hdrs_out, rc_out):
-        assert a.dtype == np.int64 and a.flags.c_contiguous
-    return int(lib.sn_stage_flat_enc_batch(
-        _as_u8p(blocks), blocks.shape[1], _i64p(lens), B, rb, trip_cap,
-        piece_cap, _i32p(meta), _i32p(starts), _as_u8p(b_rows), tag_cap,
-        _as_u8p(elem_out), elem_out.shape[1], _i64p(clens_out),
-        _i64p(hdrs_out), _i64p(rc_out), n_threads))
-
-
 def stage_flat_dec_id(element: np.ndarray, hdr: int, dst_len: int,
                       rb: int, b_row: np.ndarray) -> None:
-    """Identity decode STAGE (flat v3): validate + decode the element
+    """Identity decode STAGE (the "id" path): validate + decode the element
     directly into b_row[:dst_len] (tail + guard zeroed).  The device
     graph needs no plan — it slices rows [0, 512) and CRCs.  Raises on
     corrupt streams (same walk validation as the host decoder)."""
@@ -484,8 +353,7 @@ def stage_flat_dec_id_batch(elems_buf: np.ndarray, offs: np.ndarray,
                             n_threads: int = 4) -> int:
     """Whole-batch identity decode STAGE with C++ worker threads: each
     row is validated + decoded straight into its staging row at pure
-    walk_stream speed (no records, no classify, no pack, no payload
-    copy).  rc_out[i] gets SN_OK or the row's negative error (always
+    walk_stream speed (no records, no plan, no payload copy).  rc_out[i] gets SN_OK or the row's negative error (always
     CORRUPT-class: id staging has no caps).  Returns the number of
     negative rows."""
     lib = _load()
@@ -502,9 +370,9 @@ def compress_batch(blocks: np.ndarray, lens: np.ndarray,
                    elem_out: np.ndarray, clens_out: np.ndarray,
                    hdrs_out: np.ndarray, rc_out: np.ndarray,
                    n_threads: int = 4) -> int:
-    """Threaded block compressor (encode half of flat v3): per-row full
-    elements into elem_out rows with clen/hdr per row.  The device's
-    encode-side job in v3 is the chunk CRC over the uncompressed
+    """Threaded block compressor (encode half of the id path): per-row
+    full elements into elem_out rows with clen/hdr per row.  The
+    device's encode-side job is the chunk CRC over the uncompressed
     blocks; the emission stays host-side.  Returns negative-row count."""
     lib = _load()
     B = rc_out.shape[0]
@@ -519,7 +387,7 @@ def compress_batch(blocks: np.ndarray, lens: np.ndarray,
 def enc_study(blocks: np.ndarray, lens: np.ndarray, dst: np.ndarray,
               out_lens: np.ndarray, variant: int,
               stats: np.ndarray | None = None) -> int:
-    """Encode-rate study runner (tools/enc_study.py; VERDICT r4 #3):
+    """Encode-rate study runner (tools/enc_study.py):
     run one matcher variant over a block batch.  variant 0 = baseline
     clone (byte-identical to sn_compress's block emission), 1 = same
     control flow without emission writes, 2 = epoch-tagged table (no
@@ -539,27 +407,6 @@ def enc_study(blocks: np.ndarray, lens: np.ndarray, dst: np.ndarray,
         _as_u8p(blocks), B, blocks.shape[1], _i64p(lens),
         _as_u8p(dst), dst.shape[1], _i64p(out_lens), variant,
         stats.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))))
-
-
-def emit_from_cands(block: bytes | np.ndarray, packed: np.ndarray) -> bytes:
-    """Block-body emission from device-found match candidates (see
-    sn_emit_from_cands): lazily-memoized exact extension (cap 64) of
-    the packed near/first pairs, greedy parse + prune — byte-exact to
-    kernels.match_np.encode_block_sortmatch (tests enforce; the
-    contract's copy-start-alignment pass is an identity under ML_CAP=64
-    and omitted here)."""
-    lib = _load()
-    n = len(block)
-    src = _to_arr(bytes(block)) if isinstance(block, (bytes, bytearray)) else block
-    assert packed.dtype == np.int32 and packed.flags.c_contiguous
-    assert packed.shape[0] >= n
-    dst = np.empty(int(lib.sn_max_compressed_length(n)) + 8, np.uint8)
-    rc = lib.sn_emit_from_cands(
-        _as_u8p(src), n,
-        packed.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _as_u8p(dst))
-    if rc < 0:
-        _raise(int(rc))
-    return dst[:rc].tobytes()
 
 
 def decompress(data: bytes) -> bytes:
@@ -597,7 +444,7 @@ def decompress_into(data: bytes | np.ndarray, out: np.ndarray) -> int:
     box a fresh multi-GB output costs ~60 us/page in first-touch
     faults (mmap'd allocations can't be heap-reused), which at 1 GiB
     swamps the walk itself — production pipelines reuse buffers, and
-    this entry is how (docs/performance.md r5 long-stream study)."""
+    this entry is how."""
     lib = _load()
     src = _to_arr(data) if isinstance(data, (bytes, bytearray)) else data
     want = ctypes.c_uint64(0)
@@ -673,191 +520,11 @@ def parse_tags(
     return int(rc)
 
 
-def plan_waves(rec: np.ndarray, n_tags: int, words: np.ndarray) -> int | None:
-    """C++ wave-group planner (see sn_plan_waves).  rec: int32[(T,4)]
-    from parse_tags; words: int32[(cap_groups, 16)] output, overwritten.
-    Returns the group count, or None when the plan exceeds the cap
-    (caller picks another engine).  Mirrors
-    kernels.decode_wavegroup.plan_waves decision-for-decision."""
-    lib = _load()
-    rc = lib.sn_plan_waves(
-        rec.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n_tags,
-        words.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), words.shape[0],
-    )
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc)
 
 
-def set_direct_t(t: int) -> None:
-    """Set the flat planner's direct-gather threshold (default 32
-    mirrors kernels.decode_flat.DIRECT_T; 0 sends everything through
-    the mirror).  Experiments/tests only."""
-    _load().sn_set_direct_t(t)
 
 
-def plan_flat(
-    rec: np.ndarray,
-    n_tags: int,
-    comp: np.ndarray,
-    rb: int,
-    meta: np.ndarray,
-    starts: np.ndarray,
-    pat: np.ndarray,
-    piece_cap: int = -1,
-) -> int | None:
-    """C++ flat-plan planner + packer (see sn_plan_flat).  rec:
-    int32[(T,4)] from parse_tags; comp: uint8[clen]; meta:
-    int32[(2*4*trip_cap, 128)], starts: int32[(8, 128)], pat:
-    uint8[256*128] outputs, overwritten.  Returns the trip count, or
-    None when piece_cap/trip_cap is exceeded (caller picks another
-    engine).  Mirrors kernels.decode_flat.plan_flat + pack_trips
-    decision-for-decision."""
-    lib = _load()
-    trip_cap = meta.shape[0] // 8
-    rc = lib.sn_plan_flat(
-        rec.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n_tags,
-        _as_u8p(comp), comp.shape[0], rb, trip_cap, piece_cap,
-        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _as_u8p(pat),
-    )
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc)
 
-
-def plan_flat_fused(
-    element: bytes | np.ndarray,
-    hdr: int,
-    dst_len: int,
-    rb: int,
-    meta: np.ndarray,
-    starts: np.ndarray,
-    pat: np.ndarray,
-    piece_cap: int = -1,
-) -> int | None:
-    """Fused single-pass flat planner (see sn_plan_flat_fused): tag
-    parse + validate + scratch replay + classify in one walk — no tag
-    record array.  element: the full block element (preamble included),
-    hdr: payload offset, dst_len: decoded size.  Bit-identical plans to
-    parse_tags + plan_flat; raises CorruptError on invalid streams,
-    returns None past a cap (caller picks another engine)."""
-    lib = _load()
-    src = _to_arr(element) if isinstance(element, bytes) else element
-    trip_cap = meta.shape[0] // 8
-    rc = lib.sn_plan_flat_fused(
-        _as_u8p(src), src.shape[0], hdr, dst_len, rb, trip_cap, piece_cap,
-        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _as_u8p(pat),
-    )
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc)
-
-
-def stage_flat_dec(
-    element: np.ndarray,
-    hdr: int,
-    dst_len: int,
-    rb: int,
-    meta: np.ndarray,
-    starts: np.ndarray,
-    b_row: np.ndarray,
-    piece_cap: int = -1,
-) -> int | None:
-    """Fused flat-decode STAGE (see sn_stage_flat_dec): plan + assemble
-    the device B row in one call — element bytes land at b_row[128:
-    128+len(element)], mirror runs directly after; b_row may be
-    np.empty (unwritten bytes are never gathered).  Plans are
-    bit-identical to plan_flat_fused.  Returns the packed trip count,
-    None past a cap, raises CorruptError on invalid streams."""
-    lib = _load()
-    trip_cap = meta.shape[0] // 8
-    rc = lib.sn_stage_flat_dec(
-        _as_u8p(element), element.shape[0], hdr, dst_len, rb, trip_cap,
-        piece_cap,
-        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _as_u8p(b_row),
-    )
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc)
-
-
-def stage_flat_enc(
-    block: np.ndarray,
-    rb: int,
-    meta: np.ndarray,
-    starts: np.ndarray,
-    b_row: np.ndarray,
-    tag_cap: int,
-    elem_out: np.ndarray,
-    piece_cap: int = -1,
-) -> tuple[int | None, int, int]:
-    """Fused flat-encode STAGE (see sn_stage_flat_enc): compress + plan
-    + assemble the device B row in one call.  Returns (trip_count,
-    clen, hdr); trip_count is None past a cap, in which case elem_out
-    [:clen] is the host-emission fallback the caller uses directly.
-    elem_out capacity must be >= max_compressed_length(len) + 8;
-    b_row may be np.empty."""
-    lib = _load()
-    trip_cap = meta.shape[0] // 8
-    clen = ctypes.c_int64(0)
-    hdr = ctypes.c_int64(0)
-    rc = lib.sn_stage_flat_enc(
-        _as_u8p(block), block.shape[0], rb, trip_cap, piece_cap,
-        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _as_u8p(b_row), tag_cap, _as_u8p(elem_out),
-        ctypes.byref(clen), ctypes.byref(hdr),
-    )
-    if rc == -5:
-        return None, int(clen.value), int(hdr.value)
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc), int(clen.value), int(hdr.value)
-
-
-def plan_flat_enc(
-    rec: np.ndarray,
-    n_tags: int,
-    comp: np.ndarray,
-    rb: int,
-    meta: np.ndarray,
-    starts: np.ndarray,
-    tagbuf: np.ndarray,
-    piece_cap: int = -1,
-) -> tuple[int, int] | None:
-    """C++ flat-plan ENCODE-emission planner (see sn_plan_flat_enc).
-    rec: int32[(T,4)] from parse_tags over comp (the host-encoded
-    element); meta/starts as plan_flat; tagbuf: uint8[tag_cap] output.
-    Returns (trip_count, tag_used) or None when a cap is exceeded."""
-    lib = _load()
-    trip_cap = meta.shape[0] // 8
-    used = ctypes.c_int64(0)
-    rc = lib.sn_plan_flat_enc(
-        rec.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n_tags,
-        _as_u8p(comp), comp.shape[0], rb, trip_cap, piece_cap,
-        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _as_u8p(tagbuf), tagbuf.shape[0], ctypes.byref(used),
-    )
-    if rc == -5:
-        return None
-    if rc < 0:
-        _raise(int(rc))
-    return int(rc), int(used.value)
 
 
 def compress_framed(data: bytes, chunk_size: int = 65536, threads: int = 0) -> bytes:
@@ -884,7 +551,7 @@ def compress_framed_crc(src: np.ndarray, n: int,
                         rec_lens: np.ndarray | None = None) -> bytes:
     """Framed compression of a contiguous uint8 buffer with OPTIONAL
     caller-supplied per-chunk raw CRC-32C values (the from-device
-    path: CRCs computed on the MXU before the bytes left HBM) and an
+    path: CRCs computed on the device before the bytes left it) and an
     optional stream-id skip so per-batch calls concatenate into one
     stream.  rec_lens (uint64[nchunks], optional) receives each
     chunk's framed record length — the record-splitting contract the

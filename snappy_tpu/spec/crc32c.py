@@ -3,7 +3,7 @@
 Polynomial 0x1EDC6F41 (reflected form 0x82F63B78).  This is the checksum
 the framed format applies (masked) to every chunk's uncompressed payload
 (SURVEY.md §8.2).  Production paths use the C++ native extension
-(hardware CRC32C instruction) or the MXU GF(2)-matmul kernel; this module
+(hardware CRC32C instruction) or the device GF(2)-matmul kernel; this module
 is the correctness oracle for both.
 """
 
@@ -89,7 +89,7 @@ def crc32c_bulk(rows: np.ndarray, lengths: np.ndarray) -> np.ndarray:
     return c ^ np.uint32(0xFFFFFFFF)
 
 
-# GF(2) helpers used to build the MXU CRC kernel's constant matrices.
+# GF(2) helpers used to build the device CRC kernel's constant matrices.
 
 def _crc_shift1_matrix() -> np.ndarray:
     """32x32 GF(2) matrix for advancing the (reflected, LSB-first) CRC

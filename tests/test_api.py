@@ -78,3 +78,20 @@ def test_into_entry_points(rng):
 
     with pytest.raises(Exception):
         api.decompress_into(raw, np.empty(5, np.uint8))
+
+
+def test_jnp_import_failure_surfaces(monkeypatch):
+    """A device codec that cannot import must fail the call, not leave
+    "auto" or backend="jnp" callers silently on another path."""
+    import sys
+
+    import snappy_tpu.runtime
+    import snappy_tpu.runtime.device_codec  # noqa: F401
+
+    monkeypatch.setattr(api, "_BACKENDS", {})
+    monkeypatch.delattr(snappy_tpu.runtime, "device_codec")
+    monkeypatch.setitem(sys.modules, "snappy_tpu.runtime.device_codec", None)
+    with pytest.raises(ImportError):
+        api.compress_framed(b"x", backend="jnp")
+    with pytest.raises(ImportError):
+        api.compress_framed(b"x")

@@ -46,7 +46,7 @@ def test_ref_sizes_uses_external_oracle():
 def test_scaling_bench_virtual_mesh():
     # conftest provides the 8-device CPU mesh: must return a non-null
     # efficiency (the r1 bench shipped null — VERDICT missing #5)
-    out = harness.scaling_bench(repeats=1, virtual=True, flat=False)
+    out = harness.scaling_bench(repeats=1, virtual=True)
     assert out["scaling_devices"] == 8
     assert out["scaling_efficiency"] is not None
     assert 0 < out["scaling_efficiency"] <= 1.0
@@ -71,24 +71,27 @@ def test_run_bench_device_backend_small(monkeypatch):
     # device phase must produce the device_* fields on the CPU mesh
     monkeypatch.setenv("SNAPPY_TPU_BENCH_E2E_CAP", str(1 << 20))
     monkeypatch.setenv("SNAPPY_TPU_BENCH_DEVBATCH", "8")
+    monkeypatch.setenv("SNAPPY_TPU_BENCH_SYSBYTES", str(4 * 65536))
+    monkeypatch.setenv("SNAPPY_TPU_BENCH_SYSBATCH", "2")
     out = harness.run_bench(size=1 << 20, backend="jnp", repeats=1)
     assert out["backend"] == "jnp"
     assert out["e2e_decompress_gbs"] > 0
     assert "device_decompress_gbs" in out
+    assert out["system_decompress_gbs"] > 0  # the id path, on any device
     assert out["ratio_le_reference_all_files"] is True
 
 
 def test_system_path_bench_small():
-    """The system phase (pipelined host plan + device execute, VERDICT
-    r2 #2) runs tiny-scale in interpret mode: both directions produce
-    positive GB/s and the device CRC barrier holds (a staging race or
-    plan corruption would fail the phase, not mis-time it)."""
+    """The system phase (id stage + device graph) runs tiny-scale on
+    the CPU: both directions produce positive GB/s and the device CRC
+    barrier holds (a staging race would fail the phase, not mis-time
+    it)."""
     native = pytest.importorskip("snappy_tpu.native")
     if not native.available():
         pytest.skip("native library unavailable")
     data = b"".join(d for _, d in corpus.make_corpus(300_000, seed=5))
     out = harness._system_path_bench(
-        data, repeats=1, sysbytes=4 * 65536, batch=2, interpret=True)
+        data, repeats=1, sysbytes=4 * 65536, batch=2)
     assert out["system_decompress_gbs"] > 0
     assert out["system_compress_gbs"] > 0
     assert out["system_bytes"] == 4 * 65536  # 2 batches: set rotation

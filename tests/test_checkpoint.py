@@ -1,4 +1,4 @@
-"""Array checkpointing over the device-resident codec (save = MXU CRC
+"""Array checkpointing over the device-resident codec (save = device CRC
 before bytes leave HBM; load = bytes land device-resident, CRC
 verified where they land).  The stream stays a spec-valid framed
 stream — the manifest rides a skippable chunk any foreign decoder
@@ -18,12 +18,6 @@ from snappy_tpu.errors import ChecksumError, CorruptError  # noqa: E402
 from snappy_tpu.runtime import device_codec  # noqa: E402
 
 
-@pytest.fixture()
-def on_tpu(monkeypatch):
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
-    monkeypatch.setattr(device_codec, "FLAT_MODE", "id")
-
-
 @pytest.mark.parametrize("dtype,shape", [
     (jnp.float32, (1000, 33)),
     (jnp.bfloat16, (64, 129)),
@@ -33,7 +27,7 @@ def on_tpu(monkeypatch):
     (jnp.bool_, (513,)),
     (jnp.float32, (0,)),
 ])
-def test_roundtrip_dtypes(rng, on_tpu, dtype, shape):
+def test_roundtrip_dtypes(rng, dtype, shape):
     n = int(np.prod(shape, dtype=np.int64))
     if dtype == jnp.bool_:
         host = (np.frombuffer(rng.randbytes(n), np.uint8)
@@ -52,7 +46,7 @@ def test_roundtrip_dtypes(rng, on_tpu, dtype, shape):
     assert np.array_equal(np.asarray(arr), host_back)
 
 
-def test_stream_is_foreign_valid(rng, on_tpu):
+def test_stream_is_foreign_valid(rng):
     """A checkpoint IS a valid framed stream: decompress_framed skips
     the manifest chunk and yields the raw array bytes."""
     host = np.frombuffer(rng.randbytes(70_000), np.uint8)
@@ -60,7 +54,7 @@ def test_stream_is_foreign_valid(rng, on_tpu):
     assert device_codec.decompress_framed(blob) == host.tobytes()
 
 
-def test_corruption_detected(rng, on_tpu):
+def test_corruption_detected(rng):
     host = np.arange(100_000, dtype=np.float32)
     blob = bytearray(checkpoint.save_array(jax.device_put(host)))
     blob[200] ^= 0xFF  # payload byte
@@ -70,7 +64,7 @@ def test_corruption_detected(rng, on_tpu):
         checkpoint.load_array(b"\xff\x06\x00\x00sNaPpY")  # no manifest
 
 
-def test_pytree_container(rng, on_tpu):
+def test_pytree_container(rng):
     tree = {
         "w": jax.device_put(np.arange(5000, dtype=np.float32)),
         "b": jax.device_put(np.frombuffer(rng.randbytes(64), np.uint8)),
@@ -87,7 +81,7 @@ def test_pytree_container(rng, on_tpu):
         checkpoint.load_pytree(b"NOTACKPT" + blob[8:])
 
 
-def test_sharded_array_roundtrip(rng, on_tpu):
+def test_sharded_array_roundtrip(rng):
     """A mesh-sharded array saves and loads correctly (the save path
     slices batches; XLA gathers shards as needed — correctness here,
     the zero-gather mesh form is sharded_encode_rows_to_chunks)."""

@@ -3,8 +3,10 @@
 decode to the exact original bytes (mutations in padding/skippable
 regions are legal) — never return wrong bytes.
 
-Runs the same sweep through all three decode engines: hybrid
-(host-parse), pure-device jnp, and pallas (interpret on CPU).
+Runs the same sweep through every decode engine: the id path (the
+production engine whenever the native library is present), and, with
+the id path switched off, the hybrid (host-parse) and pure-device jnp
+decoders.
 """
 
 import random
@@ -56,21 +58,24 @@ def corpus(rng):
     return data, device_codec.compress_framed(data)
 
 
-def test_fuzz_hybrid_engine(corpus, rng):
+def test_fuzz_hybrid_engine(corpus, rng, monkeypatch):
     data, framed = corpus
-    assert device_codec.HOST_PARSE  # default path
+    assert device_codec.HOST_PARSE
+    monkeypatch.setattr(device_codec, "_use_id", lambda: False)
     _fuzz_sweep(data, framed, rng, 60)
 
 
 def test_fuzz_pure_device_engine(corpus, rng, monkeypatch):
     data, framed = corpus
+    monkeypatch.setattr(device_codec, "_use_id", lambda: False)
     monkeypatch.setattr(device_codec, "HOST_PARSE", False)
     _fuzz_sweep(data, framed, rng, 40)
 
 
 def test_fuzz_pallas_engine(corpus, rng, monkeypatch):
+    # the id path (the production engine, native library present)
     data, framed = corpus
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
+    assert device_codec._use_id()
     _fuzz_sweep(data, framed, rng, 24)
 
 

@@ -16,25 +16,19 @@ from snappy_tpu.errors import ChecksumError, CorruptError  # noqa: E402
 from snappy_tpu.runtime import device_codec  # noqa: E402
 
 
-@pytest.fixture()
-def on_tpu(monkeypatch):
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
-    monkeypatch.setattr(device_codec, "FLAT_MODE", "id")
-
-
 def _mix(rng, n):
     return (b"from the device, framed " * 4096 + rng.randbytes(n))[:n]
 
 
 class TestFromDevice:
-    def test_roundtrip_boundary_sizes(self, rng, on_tpu):
+    def test_roundtrip_boundary_sizes(self, rng):
         for n in (1, 1024, 65_536, 65_537, 131_072, 300_001):
             data = _mix(rng, n)
             arr = jax.device_put(np.frombuffer(data, np.uint8))
             fr = device_codec.compress_framed_from_device(arr)
             assert device_codec.decompress_framed(fr) == data, n
 
-    def test_byte_identical_to_host_path(self, rng, on_tpu):
+    def test_byte_identical_to_host_path(self, rng):
         """Same matcher, same CRC values: the from-device stream must
         equal compress_framed(bytes) exactly."""
         for n in (5_000, 65_536, 200_000):
@@ -43,20 +37,19 @@ class TestFromDevice:
             assert (device_codec.compress_framed_from_device(arr)
                     == device_codec.compress_framed(data)), n
 
-    def test_empty(self, on_tpu):
+    def test_empty(self):
         arr = jax.device_put(np.zeros(0, np.uint8))
         fr = device_codec.compress_framed_from_device(arr)
         assert device_codec.decompress_framed(fr) == b""
 
-    def test_incompressible_chunks_fall_back_uncompressed(self, rng,
-                                                          on_tpu):
+    def test_incompressible_chunks_fall_back_uncompressed(self, rng):
         data = rng.randbytes(150_000)  # random: every chunk stays raw
         arr = jax.device_put(np.frombuffer(data, np.uint8))
         fr = device_codec.compress_framed_from_device(arr)
         assert len(fr) <= len(data) + 3 * 8 + 10  # headers only
         assert device_codec.decompress_framed(fr) == data
 
-    def test_crc_detects_corruption(self, rng, on_tpu):
+    def test_crc_detects_corruption(self, rng):
         """The CRCs embedded by the device graph must catch a flipped
         payload byte at decode time."""
         data = _mix(rng, 180_000)
@@ -66,26 +59,26 @@ class TestFromDevice:
         with pytest.raises((ChecksumError, CorruptError)):
             device_codec.decompress_framed(bytes(fr))
 
-    def test_multi_batch(self, rng, on_tpu, monkeypatch):
+    def test_multi_batch(self, rng, monkeypatch):
         monkeypatch.setattr(device_codec, "BATCH", 2)
         data = _mix(rng, 65536 * 7 + 123)
         arr = jax.device_put(np.frombuffer(data, np.uint8))
         fr = device_codec.compress_framed_from_device(arr)
         assert device_codec.decompress_framed(fr) == data
 
-    def test_2d_input_flattens(self, rng, on_tpu):
+    def test_2d_input_flattens(self, rng):
         data = _mix(rng, 131_072)
         arr = jax.device_put(
             np.frombuffer(data, np.uint8).reshape(2, 65536))
         fr = device_codec.compress_framed_from_device(arr)
         assert device_codec.decompress_framed(fr) == data
 
-    def test_wrong_dtype_raises(self, on_tpu):
+    def test_wrong_dtype_raises(self):
         with pytest.raises(ValueError):
             device_codec.compress_framed_from_device(
                 jax.device_put(np.zeros(8, np.float32)))
 
-    def test_host_crc_fallback(self, rng, on_tpu, monkeypatch):
+    def test_host_crc_fallback(self, rng, monkeypatch):
         monkeypatch.setattr(device_codec, "DEVICE_CRC", False)
         data = _mix(rng, 70_000)
         arr = jax.device_put(np.frombuffer(data, np.uint8))
@@ -94,7 +87,7 @@ class TestFromDevice:
 
 
 class TestMeshFromDevice:
-    def test_loader_roundtrip_through_mesh(self, rng, on_tpu):
+    def test_loader_roundtrip_through_mesh(self, rng):
         """Full circle over the 8-device mesh: framed stream -> sharded
         loader rows (CRC-verified on each shard) -> sharded from-device
         encode -> framed stream -> original bytes; the re-encoded
@@ -111,7 +104,7 @@ class TestMeshFromDevice:
         assert device_codec.decompress_framed(fr2) == data
         assert fr2 == device_codec.compress_framed(data)
 
-    def test_short_middle_row_per_record_semantics(self, rng, on_tpu):
+    def test_short_middle_row_per_record_semantics(self, rng):
         """A short MIDDLE row (not just the last) must still encode
         per-row records — the contiguous-buffer fast path only applies
         to full middle rows, so this exercises the gated fallback."""
@@ -131,7 +124,7 @@ class TestMeshFromDevice:
         assert (device_codec.decompress_framed(stream)
                 == b"".join(datas))
 
-    def test_empty_rows(self, on_tpu):
+    def test_empty_rows(self):
         from snappy_tpu.dist import mesh as dmesh
 
         mesh = dmesh.make_mesh()
@@ -142,7 +135,7 @@ class TestMeshFromDevice:
         assert device_codec.decompress_framed(fr) == b""
 
 
-def test_from_device_generator_fuzz(rng, on_tpu):
+def test_from_device_generator_fuzz(rng):
     """Generator-family fuzz for the from-device encode (mirrors the
     to_device sweep): 8 families x sizes, each array compressed from
     the (virtual) device and round-tripped, byte-identical to the
@@ -182,10 +175,10 @@ def test_from_device_generator_fuzz(rng, on_tpu):
         assert fr == device_codec.compress_framed(data), (t, kind)
 
 
-def test_compress_from_device_raw(rng, on_tpu):
+def test_compress_from_device_raw(rng):
     """Raw-format from-device encode: byte-identical to the production
     host encoder, round-trips, dtype-guarded; completes the
-    to/from-device API matrix (framed has CRC-on-MXU; raw has no
+    to/from-device API matrix (framed has the device CRC; raw has no
     checksum so the documented division is fetch + host encode)."""
     import snappy_tpu
 

@@ -70,10 +70,8 @@ def test_host_decompress_parity(rng):
 
 
 def test_two_host_parity_flat_engines(rng, monkeypatch):
-    """Config-5 parity with the TPU engines forced: per-host compress
-    assembly and decompress ranges must stay bit-identical when the
-    production engines (interpret mode here) do the work."""
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
+    """Config-5 parity on the production id path: per-host compress
+    assembly and decompress ranges must stay bit-identical."""
     data = (b"flat multihost " * 4000)[:50000] + rng.randbytes(40000)
     single = device_codec.compress_framed(data)
 
@@ -150,8 +148,6 @@ def test_host_compress_from_device_full_circle(rng, monkeypatch):
     if len(jax.devices()) < 4:
         import pytest
         pytest.skip("needs 4 devices")
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
-    monkeypatch.setattr(device_codec, "FLAT_MODE", "id")
     data = (b"from-device multihost " * 9000)[:200_000] + rng.randbytes(
         70_000)
     fr = device_codec.compress_framed(data)

@@ -1,8 +1,8 @@
-"""Device-resident decode APIs (flat v3 data-loader path):
+"""Device-resident decode APIs (id data-loader path):
 decompress_to_device (raw, identity seg staging) and
-decompress_framed_to_device (framed, id rows + MXU CRC).  On the CPU
-test platform the arrays are host-backed, but the code path — staging,
-H2D, device assembly, err-only fetch — is the production one."""
+decompress_framed_to_device (framed, id rows + device CRC).  The id path
+runs on every platform, so on the CPU test platform the code path —
+staging, H2D, device assembly, err-only fetch — is the production one."""
 
 import numpy as np
 import pytest
@@ -16,26 +16,20 @@ from snappy_tpu.runtime import device_codec  # noqa: E402
 from snappy_tpu.spec.format import put_uvarint  # noqa: E402
 
 
-@pytest.fixture()
-def on_tpu(monkeypatch):
-    monkeypatch.setattr(device_codec, "_pallas_cache", True)
-    monkeypatch.setattr(device_codec, "FLAT_MODE", "id")
-
-
 def _mix(rng, n):
     body = (b"to the device, verbatim " * 4096 + rng.randbytes(n))[:n]
     return body
 
 
 class TestRawToDevice:
-    def test_roundtrip_boundary_sizes(self, rng, on_tpu):
+    def test_roundtrip_boundary_sizes(self, rng):
         for n in (1, 1024, 65_536, 65_537, 131_072 + 13, 300_000):
             data = _mix(rng, n)
             raw = native.compress(data)
             dev = device_codec.decompress_to_device(raw)
             assert bytes(np.asarray(dev)) == data, n
 
-    def test_foreign_stream(self, rng, on_tpu):
+    def test_foreign_stream(self, rng):
         import pyarrow as pa
 
         data = _mix(rng, 200_000)
@@ -43,7 +37,7 @@ class TestRawToDevice:
         dev = device_codec.decompress_to_device(raw)
         assert bytes(np.asarray(dev)) == data
 
-    def test_straddling_literal_and_copy(self, rng, on_tpu):
+    def test_straddling_literal_and_copy(self, rng):
         lit = rng.randbytes(70_000)            # literal straddles 64 KiB
         echo = lit[60_000:60_100] * 40     # copies reach across
         data = lit + echo + rng.randbytes(10_000)
@@ -51,12 +45,12 @@ class TestRawToDevice:
         dev = device_codec.decompress_to_device(raw)
         assert bytes(np.asarray(dev)) == data
 
-    def test_truncated_raises(self, rng, on_tpu):
+    def test_truncated_raises(self, rng):
         raw = native.compress(rng.randbytes(150_000))
         with pytest.raises(CorruptError):
             device_codec.decompress_to_device(raw[: len(raw) // 2])
 
-    def test_oversized_offset_falls_back(self, on_tpu):
+    def test_oversized_offset_falls_back(self):
         """A format-legal copy offset past the 64 KiB carry is not
         id-seg-stageable: the host decoder must take over (same bytes
         out)."""
@@ -76,14 +70,14 @@ class TestRawToDevice:
         dev = device_codec.decompress_to_device(raw)
         assert bytes(np.asarray(dev)) == want
 
-    def test_empty_stream(self, on_tpu):
+    def test_empty_stream(self):
         raw = native.compress(b"")
         dev = device_codec.decompress_to_device(raw)
         assert bytes(np.asarray(dev)) == b""
 
-    def test_many_batches_no_staging_alias(self, rng, on_tpu,
+    def test_many_batches_no_staging_alias(self, rng,
                                            monkeypatch):
-        """Regression for the r4 advisor's high finding: device_put
+        """Regression: device_put
         zero-copy aliases host numpy buffers, so a reused staging
         buffer corrupts earlier batches' device arrays once the stream
         spans more batches than the buffer pool.  BATCH=2 makes a
@@ -97,7 +91,7 @@ class TestRawToDevice:
         assert got[:65536] == data[:65536]  # first batch intact
         assert got == data
 
-    def test_id_seg_stager_parity_vs_host(self, rng, on_tpu):
+    def test_id_seg_stager_parity_vs_host(self, rng):
         """Per-segment identity staging reproduces the host decode at
         every 64 KiB boundary split."""
         data = (b"the quick brown fox " * 9000)[:170_000]
@@ -107,35 +101,35 @@ class TestRawToDevice:
 
 
 class TestFramedToDevice:
-    def test_roundtrip_and_residency(self, rng, on_tpu):
+    def test_roundtrip_and_residency(self, rng):
         data = _mix(rng, 500_000)
         fr = device_codec.compress_framed(data)
         dev = device_codec.decompress_framed_to_device(fr)
         assert dev.dtype == np.uint8 and dev.shape == (len(data),)
         assert bytes(np.asarray(dev)) == data
 
-    def test_mixed_uncompressed_chunks(self, rng, on_tpu):
+    def test_mixed_uncompressed_chunks(self, rng):
         # random 64 KiB blocks emit CHUNK_UNCOMPRESSED; text compresses
         data = rng.randbytes(200_000) + b"framed mix " * 30_000
         fr = device_codec.compress_framed(data)
         dev = device_codec.decompress_framed_to_device(fr)
         assert bytes(np.asarray(dev)) == data
 
-    def test_device_crc_rejects_corruption(self, rng, on_tpu):
-        data = (b"verify me on the MXU " * 9000)[:180_000]
+    def test_device_crc_rejects_corruption(self, rng):
+        data = (b"verify me on the device " * 9000)[:180_000]
         fr = bytearray(device_codec.compress_framed(data))
         fr[40] ^= 0xFF  # flip a payload byte in the first chunk body
         with pytest.raises((ChecksumError, CorruptError)):
             device_codec.decompress_framed_to_device(bytes(fr))
 
-    def test_verify_false_skips_crc_raise(self, rng, on_tpu):
+    def test_verify_false_skips_crc_raise(self, rng):
         data = (b"no verify " * 9000)[:90_000]
         fr = device_codec.compress_framed(data)
         dev = device_codec.decompress_framed_to_device(
             fr, verify_checksums=False)
         assert bytes(np.asarray(dev)) == data
 
-    def test_ragged_chunks_fall_back(self, rng, on_tpu):
+    def test_ragged_chunks_fall_back(self, rng):
         """Non-64 KiB interior chunks (a non-default writer) can't use
         the reshape assembly: the host path + device_put must kick in,
         same bytes out."""
@@ -144,7 +138,7 @@ class TestFramedToDevice:
         dev = device_codec.decompress_framed_to_device(fr)
         assert bytes(np.asarray(dev)) == data
 
-    def test_multi_batch_assembly_order(self, rng, on_tpu, monkeypatch):
+    def test_multi_batch_assembly_order(self, rng, monkeypatch):
         """More chunks than one device batch: rows must reassemble in
         chunk order across batches."""
         monkeypatch.setattr(device_codec, "BATCH", 2)
@@ -154,7 +148,7 @@ class TestFramedToDevice:
         assert bytes(np.asarray(dev)) == data
 
 
-def test_to_device_generator_fuzz(rng, on_tpu):
+def test_to_device_generator_fuzz(rng):
     """Bounded version of the round-4 400-case sweep (0 failures):
     8 generator families x own + foreign raw streams + framed, all
     through the id/to_device paths."""

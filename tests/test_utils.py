@@ -84,3 +84,20 @@ def test_warm_heap_smoke():
     from snappy_tpu.utils.hostmem import warm_heap
 
     warm_heap(1 << 20)  # must not raise; idempotent tuning inside
+
+
+def test_jaxcache_honours_env(monkeypatch, tmp_path):
+    from snappy_tpu.utils import jaxcache
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert jaxcache.cache_dir() == str(tmp_path)
+
+
+def test_jaxcache_default_is_fixed_in_repo(monkeypatch):
+    import os
+
+    from snappy_tpu.utils import jaxcache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert jaxcache.cache_dir() == os.path.join(repo, ".jax_cache")

@@ -1,10 +1,8 @@
 #!/usr/bin/env python
-"""Encode-matcher per-core ceiling study (VERDICT r4 #3): where do the
-~120 us/block go, and which levers move the rate?  Mirrors the r4
-decode-walk study's method: identical-emission variants timed over the
-bench corpus, plus an instrumented pass that counts the work items so
-the cycle budget can be attributed.  Results bank in
-docs/performance.md whichever way they fall.
+"""Encode-matcher per-core ceiling study: where does the per-block time
+go, and which levers move the rate?  Identical-emission variants timed
+over the bench corpus, plus an instrumented pass that counts the work
+items so the cycle budget can be attributed.
 
 Usage: python tools/enc_study.py [--bytes N] [--threads T]
 """

@@ -30,7 +30,7 @@ import sys
 import warnings
 from pathlib import Path
 
-DEFAULT_PATHS = ["snappy_tpu", "tests", "tools", "bench.py",
+DEFAULT_PATHS = ["snappy_tpu", "tests", "tools", "bench.py", "chip_smoke.py",
                  "__graft_entry__.py"]
 
 
